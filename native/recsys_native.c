@@ -1,8 +1,8 @@
 /* Native fast paths for recsys-tpu host-side ingest.
  *
- * TPU-native counterpart of the reference's C ingest layer
+ * Counterpart of the reference's C ingest layer
  * (util.c:7-34 fscanf parser; mat2d.c:61-83 glibc-random fills).
- * The compute path is JAX/XLA/Pallas; everything here runs on host
+ * The compute path is JAX/XLA; everything here runs on host
  * before device upload, where the bottlenecks are text parsing of
  * multi-million-line .in files and the inherently sequential glibc
  * random() recurrence.  Exposed to Python via ctypes

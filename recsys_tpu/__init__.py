@@ -1,19 +1,20 @@
-"""recsys_tpu — a TPU-native matrix-factorization recommender framework.
+"""recsys_tpu — a matrix-factorization recommender framework on JAX.
 
-A ground-up JAX/XLA/Pallas/pjit re-design of the capabilities of the
+A ground-up JAX/XLA/shard_map re-design of the capabilities of the
 reference C/OpenMP/MPI recommender (vladstojna/recommender-system):
 full-batch gradient-descent matrix factorization over a sparse ratings
 matrix, with bit-compatible deterministic initialization, top-1
-recommendation output, single-chip and multi-chip (2-D checkerboard
-mesh) execution paths, and a benchmarking harness.
+recommendation output, single-device and multi-device (2-D
+checkerboard mesh) execution paths, and a benchmarking harness.  It
+runs on NVIDIA GPUs (and on the CPU backend for tests).
 
 Layout:
   io/        ingest (.in parser), glibc-random() recreation, writers, generator
   models/    factor-model state and deterministic initialization
-  ops/       compute kernels: dense masked-GD, COO segment-sum, top-1 (jnp + Pallas)
+  ops/       compute: dense masked-GD, BELL and COO sparse steps, top-1
   parallel/  mesh construction, checkerboard sharding, shard_map train step
   engine/    numpy oracle, jitted trainers, end-to-end runner
-  utils/     timing, logging
+  utils/     timing, compile cache, checkpoints
   cli.py     command-line entry points
 """
 

@@ -1,260 +1,93 @@
-"""Per-path roofline models: what the hardware would allow per iteration.
+"""Per-path roofline model: the least time the device could take.
 
-The reference's reports derive per-process comm volume and speedup
-ceilings by hand (report-mpi.pdf §4.1); SURVEY §7.4 asks for the chip
-version — updates/s vs a roofline from bytes-touched over HBM bandwidth
-(sparse paths) or FLOPs over MXU peak (dense paths).  Round 2 computed
-these by hand once (STATUS.md: "~6x off gather roofline", "~4x over MXU
-roofline"); this module makes them bench columns so efficiency
-regressions are visible per row.
+SURVEY §7.4 asks for updates/s against a roofline: bytes over device
+memory bandwidth for the sparse paths, FLOPs over the matmul peak for
+the dense paths.  The model counts the minimum work the formulation
+must do per iteration, from the instance's shapes, and divides by the
+published peaks of the card the row ran on.  ``pct_of_roofline`` is
+that minimum over the measured time: 100% would be the card's speed of
+light for the formulation, which no program reaches.
 
-These are MODELS, not measurements: the byte/FLOP counts are the
-minimum traffic/work the formulation must perform, and the peaks are
-the chip's datasheet numbers (or, for gathers, the best rate any
-measurement has ever sustained), so ``pct_roofline`` = (modelled
-minimum wall) / (measured wall) — 100% means running at the hardware's
-speed of light for that formulation.  Measured walls are END-TO-END
-(upload + train + top-1 + download) unless the row carries a measured
-``train_s`` (round 4+ rows do), which makes old-row percentages
-conservative.
-
-Peak constants (TPU v5e, one chip — the attachment hardware):
-  HBM      ~819 GB/s
-  MXU bf16 ~197 TFLOP/s; f32 at `highest` precision runs 6 bf16 passes
-           per product (the fused kernels' configuration), so f32 peak
-           is modelled at 197/6.  Software-emulated f64 has no
-           meaningful peak — dense-f64 rows report no percentage.
-  Gather   the sparse paths' ceiling is XLA's fused gather->reduce
-           pipeline, NOT HBM bytes.  Synthetic standalone gathers
-           plateau at ~208-236 M f32 rows/s / ~120 M f64 rows/s —
-           independent of row width (k8 == k32 == k128), dtype
-           (bf16/int8 identical), index order, duplication AND source-
-           table size, degrading to 21-74 M rows/s for >=33 MB tables
-           with random indices (probe_gather_rate.py,
-           probe_gather_tablesize.py; round 4 tested the table-size
-           and locality hypotheses for the two >100% round-3 rows and
-           DISPROVED both) — yet production BELL programs sustain up
-           to 413 M f32 rows/s: the fused pipeline beats every
-           standalone form.  The ceilings below are therefore the best
-           sustained production observation per dtype (calibrated by
-           scripts/calibrate_gather_ceiling.py) — a convention that
-           nothing measured exceeds, making the column a regression
-           detector rather than absolute hardware truth.
-           In-kernel alternatives are unavailable: Mosaic cannot lower
-           vector gathers (probe_mosaic_gather.py P1-P3 repro) and f64
-           bitcast_convert_type crashes this toolchain's compiler, so
-           the fused-pipeline rate IS the sparse-path roofline.
+The peaks live in ONE table keyed by JAX's ``device_kind``.  A device
+that is not in the table is an error, never a default.
 """
 
 from __future__ import annotations
 
-HBM_GBPS = 819.0
-MXU_TFLOPS = {"bfloat16": 197.0, "float32": 197.0 / 6.0}
-# Gather ceilings = the FASTEST SUSTAINED PRODUCTION OBSERVATION per
-# dtype (+~2% headroom), derived from the committed bench rows by
-# scripts/calibrate_gather_ceiling.py (round 4: gen-inst20000-10000
-# f32 trained at 413 M rows/s; inst1000-1000 f64 at 136 M after the
-# merge-by-rows bucketing).  This is a
-# CONVENTION, not physics: synthetic standalone gathers plateau at
-# ~210-236 M f32 rows/s regardless of row width (k8 == k32 == k128),
-# index order, duplication or table size, and DEGRADE to 21-74 M
-# rows/s for >=33 MB tables with random indices
-# (probe_gather_rate.py, probe_gather_tablesize.py + committed
-# r4_probe_* logs) — yet XLA's fused gather->reduce pipelines beat
-# every standalone form, so "rows over the best fused rate" is the
-# only ceiling nothing measured exceeds.  Re-run the calibration
-# script after sweeps and bump these if a new row beats them.
-GATHER_ROWS_PER_S = {"float32": 420e6, "bfloat16": 420e6, "float64": 140e6}
-GATHER_BYTES_GBPS = 209.0  # wide-row cap: k512 f32 measured 102 M rows/s
-
-# Software-emulated f64 elementwise throughput inside the fused BELL
-# reductions (mul/add/join ops over the gathered rows) — the term the
-# round-4 roofline left unpriced, which made every SPLIT-f64 row (whose
-# gathers run at the pure f32 rate) render 40-58% "of roofline" when the
-# missing cost was XLA's software-f64 VPU math, not headroom (round-4
-# review, weak #1/#2).  Same convention as the gather ceilings: the best
-# sustained production observation (+~2% headroom), derived from the
-# committed f64 rows by scripts/calibrate_gather_ceiling.py — round 5:
-# gen-inst60000-2000 sustains 70.7 G emulated-op/s and
-# gen-inst20000-10000 70.2 inside chunked additive pipelines.  Ops per
-# slot are counted from the formulation (ops/bell.py::_delta_side): per
-# gathered element one pred mul + one pred-reduce add + one delta mul +
-# one delta-reduce add (4k per slot), plus the 2-add exact join when the
-# side gathers its 3xf32 split form (6k), plus 2 per-slot err ops.
-F64_VPU_OPS_PER_S = 72e9
-
-# Fixed in-loop cost per fused-kernel iteration (loop carry, strip
-# bookkeeping, grid re-entry): the term single-pass/small-shape rows pay
-# that no MXU pass count amortizes.  Bounded by the committed rows whose
-# MXU work is smallest relative to their wall (instML100k bfloat16:
-# 4.3 us/iter at a 3.5 us padded 1-pass floor => <= 0.8 us fixed;
-# inst500-500 bfloat16: 1.5 us at 0.45 => <= 1.05).  Same convention as
-# every ceiling here: the tightest production bound, slightly inside it.
-PALLAS_ITER_FLOOR_S = 0.75e-6
+# Published dense (no sparsity) peaks at the card's full power limit.
+# Source: NVIDIA H100 Tensor Core GPU data sheet (SXM5 part) and the
+# NVIDIA Hopper architecture white paper.  A card set below 700 W
+# (nvidia-smi power.limit) cannot hold its top clock under load, so
+# every row quotes its power limit beside its percentage.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_tflops": 989.0,  # tensor cores, bf16 operands, f32 accumulation
+        "tf32_tflops": 495.0,  # tensor cores, TF32 (not used: f32 here is true f32)
+        "fp32_tflops": 67.0,  # CUDA cores: true-f32 products
+        "fp64_tflops": 67.0,  # FP64 tensor cores
+        "hbm_gbps": 3350.0,
+        "nvlink_gbps_each_way": 450.0,  # 900 GB/s total to the other cards
+    },
+}
 
 
-def gather_row_seconds(
-    k: int,
-    dtype: str,
-    side_slots: int | None = None,
-    allow_split: bool = True,
-) -> float:
-    """Seconds per gathered row for ONE side: the calibrated fused-
-    pipeline row rate, capped by the wide-row byte rate once rows
-    approach ~2 KB (probe_gather_rate.py: k512 f32 measured 102 M
-    rows/s = 209 GB/s).  Row bytes are the TRUE k*es width — a fused
-    gather->reduce consumes real lanes only; pricing the 128-lane
-    padded width put gen-inst20000-10000 f32 (k=40, measured 212 GB/s
-    of padded-equivalent traffic) over 100%.  f64 rows that the engine
-    splits (ops/bell.py _use_split_gather: 3k <= 64 always, 3k <= 128
-    when the side's unsplit set is chunked) gather their exact 3xf32
-    split form — one f32 row per slot at the f32 rate;
-    ``allow_split=False`` prices paths that never split (the COO
-    formulation)."""
-    from recsys_tpu.ops.bell import _use_split_gather
-
-    es = 8 if dtype == "float64" else (2 if dtype == "bfloat16" else 4)
-    kw = k
-    rate_dtype = dtype
-    if (
-        allow_split
-        and dtype == "float64"
-        and _use_split_gather("float64", k, side_slots)
-    ):
-        es, kw = 4, 3 * k
-        rate_dtype = "float32"
-    rate = GATHER_ROWS_PER_S.get(rate_dtype, GATHER_ROWS_PER_S["float32"])
-    return max(1.0 / rate, kw * es / (GATHER_BYTES_GBPS * 1e9))
+def peaks(device_kind: str) -> dict:
+    """The peak table entry for ``device_kind``; ValueError if absent."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device {device_kind!r}; add its data-sheet "
+            "rates to bench/roofline.PEAKS before computing a roofline share"
+        ) from None
 
 
-def bell_side_seconds(k: int, dtype: str, slots: int) -> float:
-    """Roofline-minimum seconds per iteration for ONE BELL side: the
-    fused gather cost plus (f64 only) the software-f64 VPU elementwise
-    term, composed by the side's measured pipeline regime:
-
-    * CHUNKED sides (gathered set > the fuse grain, ops/bell.py
-      ``_chunk_grain``) process 32-64 MB pieces whose gathers and
-      reductions SERIALIZE — every committed chunked-f64 row sits at
-      82-100% of the ADDITIVE gather+VPU floor at the calibrated rate
-      (gen-inst60000-2000 98.9%, gen-inst20000-10000 98%, gen-ML1M 91%).
-    * UNCHUNKED sides fuse the whole pipeline and the VPU math overlaps
-      the gather engine — the committed small/unchunked rows run ABOVE
-      the additive floor (instML100k 112%, inst200-10000 123%,
-      inst1000-1000 175% of additive), so the honest floor there is
-      ``max(gather, vpu)``.
-
-    f32/bf16 sides price gather only: their elementwise math runs at
-    native VPU rate (~100x the f64-emulation rate) and never binds.
-    """
-    if slots == 0:
-        return 0.0
-    gather = slots * gather_row_seconds(k, dtype, slots)
-    if dtype != "float64":
-        return gather
-    from recsys_tpu.ops.bell import _chunk_grain, _use_split_gather
-
-    split = _use_split_gather("float64", k, slots)
-    ops = slots * ((6 * k + 2) if split else (4 * k + 2))
-    vpu = ops / F64_VPU_OPS_PER_S
-    row_bytes = (3 * k * 4 + k * 8) if split else k * 8
-    set_bytes = slots * row_bytes
-    chunked = set_bytes > _chunk_grain(set_bytes, row_bytes=row_bytes, f64=True)
-    return gather + vpu if chunked else max(gather, vpu)
+def _itemsize(dtype: str) -> int:
+    return {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
 
 
-def train_cost_model(spec, cfg, path: str):
-    """(model, seconds_per_iteration) of the roofline-minimum iteration
-    cost for this instance/path, or (None, None) when no device model
-    applies (host-serial runs, software-f64 dense)."""
-    es = 8 if cfg.dtype == "float64" else (2 if cfg.dtype == "bfloat16" else 4)
+def matmul_tflops(p: dict, dtype: str) -> float:
+    """Matmul peak for the engine's precision mapping of ``dtype``."""
+    return {
+        "bfloat16": p["bf16_tflops"],
+        "float32": p["fp32_tflops"],
+        "float64": p["fp64_tflops"],
+    }[dtype]
+
+
+def train_cost_model(spec, cfg, path: str, device_kind: str):
+    """(bound, seconds per iteration) of the least iteration time, where
+    ``bound`` names the limit ("flops" or "bytes"); (None, None) for the
+    host-serial path, which runs no device program."""
+    p = peaks(device_kind)
     k = spec.features
+    es = _itemsize(cfg.dtype)
+    bw = p["hbm_gbps"] * 1e9
+    if path == "dense":
+        # Three products of 2*U*I*k FLOPs each (prediction, E·R, Eᵀ·L);
+        # A and M must each be read at least once.
+        cells = spec.users * spec.items
+        flops = 3 * 2.0 * cells * k
+        a_bytes = 2 * cells * (8 if cfg.dtype == "float64" else 4)
+        t_flops = flops / (matmul_tflops(p, cfg.dtype) * 1e12)
+        t_bytes = a_bytes / bw
+        return ("flops", t_flops) if t_flops >= t_bytes else ("bytes", t_bytes)
     if path == "bell":
-        # Fused-gather-pipeline-bound (see module docstring — NOT HBM
-        # bytes: the pipeline moves rows ~1/3 of what the HBM byte
-        # model would predict for k<=128).  Each side's fused
-        # gather-reduce fetches the OPPOSITE side's factor rows once
-        # per occupied slot, so the sides are priced independently:
-        # slot count and the f64 split gate are per-side (the sides
-        # can be extremely asymmetric — gen-inst1000-80000 has 537k
-        # u-side vs 509k i-side slots in buckets of very different
-        # shapes).
+        # Each padded slot gathers one opposite-side factor row.
         from recsys_tpu.ops.bell import bell_side_slots
 
         su, si = bell_side_slots(spec)
-        per_iter = sum(
-            bell_side_seconds(k, cfg.dtype, s) for s in (su, si)
-        )
-        return "gather+f64vpu" if cfg.dtype == "float64" else "gather", per_iter
+        return "bytes", (su + si) * k * es / bw
     if path == "coo":
-        # Gather-engine-bound: two k-row gathers per entry per side
-        # (L[row], R[col] for the prediction; the segment reduction's
-        # write traffic is a second-order term at the engine's row
-        # rate).  The COO formulation never splits f64 tables.
-        per_iter = 4.0 * spec.nnz * gather_row_seconds(k, cfg.dtype, allow_split=False)
-        return "gather", per_iter
-    if path in ("pallas", "dense"):
-        if cfg.dtype == "float64":
-            return None, None  # software-emulated: no datasheet peak
-        # MXU-bound, with MXU lane occupancy priced in: the prediction
-        # matmul contracts over k and therefore pays the systolic
-        # array's full 128-lane contraction regardless of k (k=30 data
-        # occupies 23% of every pred pass), while the two gradient
-        # matmuls stream only K sublane rows (the K-major layout) and
-        # cost their true k.  MAC-equivalents per iteration:
-        #   pred: U*I*128;  dL + dR: 2 * U*I*k.
-        #
-        # Round 5 (profile by slope, scripts/probe_resident_profile.py,
-        # bench_logs/r5_probe_resident*.log): the fused kernels run at
-        # the model's speed of light once their REAL hardware work is
-        # priced —
-        # * PADDED dims, not true dims: the strip walk pads items to the
-        #   plan's strip multiple and users to 128 (the plan already
-        #   ranks candidates by padding; the residue is MXU work the
-        #   systolic array physically performs).  ML100k 1-pass measured
-        #   4.0 us/iter == the padded 1-pass model.
-        # * A fixed in-loop cost per iteration (PALLAS_ITER_FLOOR_S):
-        #   sequential loop-carry overhead that no pass count amortizes,
-        #   bounded by the smallest committed row (inst500-500 bf16:
-        #   1.5 us/iter total at a 0.7 us 1-pass padded floor).
-        # * The streamed kernel reads transposed A from HBM once per
-        #   iteration (the resident kernel holds it in VMEM).
-        kp = -(-k // 128) * 128
-        users_p, items_p = spec.users, spec.items
-        a_traffic = 0.0
-        # The fixed in-loop cost is a PALLAS kernel property (loop carry,
-        # strip bookkeeping); the XLA 'dense' path never pays it.
-        iter_floor = PALLAS_ITER_FLOOR_S if path == "pallas" else 0.0
-        if path == "pallas":
-            from recsys_tpu.engine import trainer
-
-            kind, a_dtype, strip = trainer._pallas_plan(
-                spec, precision=trainer.mxu_precision(cfg)
-            )
-            users_p = -(-spec.users // 128) * 128
-            items_p = -(-spec.items // max(strip, 1)) * max(strip, 1)
-            if kind == "stream":
-                import jax.numpy as jnp
-
-                a_traffic = (
-                    users_p * items_p * jnp.dtype(a_dtype).itemsize / (HBM_GBPS * 1e9)
-                )
-        flops_per_iter = 2.0 * users_p * items_p * (kp + 2 * k)
-        peak = MXU_TFLOPS["bfloat16" if cfg.dtype == "bfloat16" else "float32"]
-        if cfg.dtype == "float32" and getattr(cfg, "precision", "auto") == "bf16x3":
-            peak = 197.0 / 3.0  # 3-pass split product (ops/pallas_dense._dot)
-        # The streamed kernel double-buffers its A strips, so the HBM
-        # read overlaps the MXU passes: the floor is whichever stream is
-        # longer, not their sum (measured: ML1M default-precision f32-A
-        # runs BELOW the additive form, r5_probe_ml1m_stream.log).
-        return "mxu", max(flops_per_iter / (peak * 1e12), a_traffic) + iter_floor
+        # Two k-rows gathered per entry on each side.
+        return "bytes", 4.0 * spec.nnz * k * es / bw
     return None, None
 
 
-def pct_of_roofline(spec, cfg, path: str, wall_s: float):
-    """(model, percent) where percent = modelled-minimum wall over the
-    measured wall (pass the steady-state train wall when available, the
-    end-to-end wall otherwise); None when no model applies."""
-    model, per_iter = train_cost_model(spec, cfg, path)
-    if model is None or not wall_s:
+def pct_of_roofline(spec, cfg, path: str, train_s: float, device_kind: str):
+    """(bound, percent): the modelled least train time over the
+    measured one; (None, None) when no model applies."""
+    bound, per_iter = train_cost_model(spec, cfg, path, device_kind)
+    if bound is None or not train_s:
         return None, None
-    return model, round(100.0 * spec.iters * per_iter / wall_s, 1)
+    return bound, 100.0 * spec.iters * per_iter / train_s

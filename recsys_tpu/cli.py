@@ -27,20 +27,18 @@ def _add_common(p):
         "-v", "--verbose", action="store_true",
         help="print dataset/config info to stderr (print_dataset_info analogue)",
     )
-    p.add_argument("--dtype", default=None, help="float32|float64|bfloat16 (default: f32 on TPU, f64 on CPU)")
-    p.add_argument("--path", default="auto", choices=["auto", "dense", "bell", "coo", "pallas"])
     p.add_argument(
-        "--precision", default="auto", choices=["auto", "highest", "bf16x3", "default"],
-        help="MXU pass policy for the f32 dense kernels (auto: f32=highest, bf16=default; "
-        "bf16x3 = 3-pass split product, ~2x matmul throughput at ~16-bit mantissa)",
+        "--dtype", default=None,
+        help="float32|float64|bfloat16 (default: f32 on an accelerator, f64 on CPU)",
     )
+    p.add_argument("--path", default="auto", choices=["auto", "dense", "bell", "coo"])
     p.add_argument("--mesh", default=None, help="RxC mesh override, e.g. 4x2 (multi-device)")
     p.add_argument("--block-items", type=int, default=4096)
     p.add_argument("--no-time", action="store_true", help="suppress the trailing time line")
     p.add_argument(
         "--strict", action="store_true",
         help="refuse lossy modes below their measured acceptance floor "
-        "(bfloat16 on shapes benched <98%% argmax agreement, or unbenched shapes)",
+        "(bfloat16 on shapes measured below 98%% argmax agreement, or unmeasured shapes)",
     )
 
 
@@ -122,20 +120,24 @@ def main(argv=None):
         mesh_shape = (int(r), int(c))
     cfg = RunConfig(
         dtype=args.dtype, path=args.path, mesh_shape=mesh_shape,
-        block_items=args.block_items, precision=getattr(args, "precision", "auto"),
+        block_items=args.block_items,
     )
 
     def _banner(spec):
         # The reference's print_dataset_info (datatypes.c:19-24), on stderr
-        # so the stdout contract stays clean.
+        # so the stdout contract stays clean; also names the path the
+        # engine picks and the device it runs on.
         if getattr(args, "verbose", False):
             import jax
 
+            n = 1 if mesh_shape is None else mesh_shape[0] * mesh_shape[1]
+            path = trainer.choose_path(spec, cfg, n_devices=n, allow_host=mesh_shape is None)
+            dev = jax.devices()[0]
             print(
                 f"dataset: {spec.users}x{spec.items} k={spec.features} "
                 f"nnz={spec.nnz} iters={spec.iters} alpha={spec.alpha} | "
-                f"dtype={cfg.dtype} path={cfg.path} backend={jax.default_backend()} "
-                f"devices={jax.device_count()}",
+                f"dtype={cfg.dtype} path={path} platform={dev.platform} "
+                f"kind={dev.device_kind} devices={jax.device_count()}",
                 file=sys.stderr,
             )
 
@@ -180,8 +182,11 @@ def main(argv=None):
             with Timer() as t:
                 _dispatch_run(spec, cfg)
             times.append(t.seconds)
+        import jax
+
         best = min(times)
         updates = spec.iters * spec.nnz
+        dev = jax.devices()[0]
         print(
             json.dumps(
                 {
@@ -191,6 +196,9 @@ def main(argv=None):
                     "dtype": cfg.dtype,
                     "path": trainer.choose_path(spec, cfg),
                     "repeats": args.repeats,
+                    "platform": dev.platform,
+                    "device_kind": dev.device_kind,
+                    "device_count": jax.device_count(),
                 }
             )
         )

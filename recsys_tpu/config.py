@@ -1,6 +1,6 @@
 """Problem/config datatypes.
 
-TPU-native analogue of the reference's metadata structs
+The analogue of the reference's metadata structs
 (``datatypes.h:4-43``: ``dataset_info``, ``input_info``): a frozen
 dataclass carrying the hyperparameters from the ``.in`` header plus the
 COO arrays, instead of per-rank local-dims bookkeeping (local shapes are
@@ -68,12 +68,7 @@ class RunConfig:
     """
 
     dtype: str = "float32"  # compute dtype: float32 | float64 | bfloat16
-    path: str = "auto"  # auto | dense | bell | coo | pallas
-    # MXU pass count for the f32 dense kernels: "auto" maps float32 ->
-    # "highest" (true f32, 6 passes) and bfloat16 -> "default" (1 pass);
-    # "bf16x3" selects the 3-pass split product (~16-bit mantissa, ~2x
-    # "highest"'s matmul throughput — ops/pallas_dense._dot).
-    precision: str = "auto"  # auto | highest | bf16x3 | default
+    path: str = "auto"  # auto | dense | bell | coo | host
     mesh_shape: Optional[tuple] = None  # (users_axis, items_axis) override
     donate: bool = True
     block_items: int = 4096  # item-block size for the streaming top-1

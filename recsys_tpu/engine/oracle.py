@@ -1,7 +1,7 @@
 """Numpy float64 oracle engine.
 
 Plays the role of the reference's serial driver (``matFact.c:29-59``) in
-our test pyramid: every JAX/Pallas/sharded path is validated against it,
+our test pyramid: every JAX/sharded path is validated against it,
 and it itself is validated against the reference's golden fixtures
 (``samples/*.out``) and per-iteration dumps (``samples/inst{0,1,2}.mats``).
 

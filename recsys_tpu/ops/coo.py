@@ -5,7 +5,7 @@ For instances whose dense A would not fit in HBM (the reference ran
 the COO entries directly, like the reference's hot loop — but instead
 of scalar scatter-adds guarded by atomics (``matFact-omp.c:97-107``) or
 per-thread partial matrices (``matFact-omp.c:60-122``), it uses sorted
-``segment_sum``s, which lower to efficient vectorized reductions on TPU.
+``segment_sum``s, which XLA lowers to vectorized reductions.
 
 Ownership-ordering insight carried over from the reference: its OMP
 backend re-sorts entries column-major when reducing L so conflicting
@@ -97,17 +97,26 @@ def make_coo_seg_inputs(spec: ProblemSpec, dtype=np.float32) -> CooSegData:
     )
 
 
+def prefix_segment_sums(g, start):
+    """Sums of the segment-sorted rows of ``g`` (segment s is rows
+    start[s]:start[s+1]) as differences of one prefix sum, accumulated in
+    at least f32 — a bf16 running sum over thousands of rows would keep
+    nothing of the small terms."""
+    acc = jnp.promote_types(g.dtype, jnp.float32)
+    S = jnp.concatenate([jnp.zeros((1, g.shape[1]), acc), jnp.cumsum(g, axis=0, dtype=acc)])
+    return (S[start[1:]] - S[start[:-1]]).astype(g.dtype)
+
+
 def coo_gd_step_cumsum(L, R, data: CooSegData, alpha2):
     """Scatter-free COO step: prefix-sum + boundary-difference reduction.
 
-    On TPU, ``segment_sum`` lowers to scatter-add, which issues rows
-    near-serially (~70 M rows/s measured — the hot spot of the whole
-    sparse path, the TPU incarnation of the reference's write-contention
-    problem, ``matFact-omp.c:85-107``). Entries are segment-sorted on
+    ``segment_sum`` lowers to a scatter-add — the accelerator form of
+    the reference's write-contention problem (``matFact-omp.c:85-107``),
+    and on a GPU an atomic one.  Entries are segment-sorted on
     both sides (row-major and col-major copies), so each segment sum
     equals a difference of two prefix-sum rows::
 
-        S = [0; cumsum(g)]            # (nnz+1, k), dense VPU scan
+        S = [0; cumsum(g)]            # (nnz+1, k), dense scan
         Δ[s] = S[start[s+1]] - S[start[s]]
 
     which trades the nnz-row scatter for an (n_segments)-row gather.
@@ -118,15 +127,13 @@ def coo_gd_step_cumsum(L, R, data: CooSegData, alpha2):
     l = L[data.rows]
     err = alpha2 * (data.vals - jnp.sum(l * r, axis=-1))
     g = err[:, None] * r
-    S = jnp.concatenate([jnp.zeros((1, g.shape[1]), g.dtype), jnp.cumsum(g, axis=0)])
-    dL = S[data.row_start[1:]] - S[data.row_start[:-1]]
+    dL = prefix_segment_sums(g, data.row_start)
 
     l2 = L[data.rows_cs]
     r2 = R[data.cols_cs]
     err2 = alpha2 * (data.vals_cs - jnp.sum(l2 * r2, axis=-1))
     g2 = err2[:, None] * l2
-    S2 = jnp.concatenate([jnp.zeros((1, g2.shape[1]), g2.dtype), jnp.cumsum(g2, axis=0)])
-    dR = S2[data.col_start[1:]] - S2[data.col_start[:-1]]
+    dR = prefix_segment_sums(g2, data.col_start)
     return L + dL, R + dR
 
 

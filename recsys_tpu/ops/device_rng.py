@@ -11,10 +11,9 @@ against the host generator (asserted in tests/test_device_rng.py).
 
 This replaces the reference's generate-on-root-and-scatter init
 (``matFact-mpi.c:459-515``) with generate-*on-device*: for 1M-dimension
-instances the host init (~10-40 s of throttled page faults) and the
-multi-GB factor upload (~0.1 GB/s through the remote attachment)
+instances the serial host init and the multi-GB factor upload
 disappear; only the 34-word state and one (B, 34) coefficient table
-cross the link.
+are uploaded.
 
 The only inexactness is the final float conversion: the host computes
 ``(x>>1)/RAND_MAX/k`` in f64 and casts; the device multiplies

@@ -5,8 +5,7 @@ The reference's serial path materializes the full dense B = L·Rᵀ
 computes dots on the fly precisely because B never fits at scale
 (``matFact-mpi.c:51-103``). Here the streaming form is the only form:
 a ``lax.scan`` over item blocks keeps a running (best value, best index)
-per user, reconstructing one (users × block) tile of B per step on the
-MXU. Tie-break matches the reference's strictly-greater scan: a new
+per user, reconstructing one (users × block) tile of B per step. Tie-break matches the reference's strictly-greater scan: a new
 block value must *exceed* the incumbent, and within a block
 ``jnp.argmax`` picks the first maximum — so the lowest item index wins.
 """
@@ -18,9 +17,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from recsys_tpu.config import ProblemSpec
+from recsys_tpu.ops.dense import matmul
 
 
-def top1_blocked(L, R, mask_blocks, block_items: int):
+def top1_blocked(L, R, mask_blocks, block_items: int, precision: str = "highest"):
     """Masked top-1 item per user.
 
     ``mask_blocks``: bool[(num_blocks, users, block_items)] — True where
@@ -37,7 +37,7 @@ def top1_blocked(L, R, mask_blocks, block_items: int):
     def body(carry, inp):
         best_val, best_idx = carry
         blk_idx, r_blk, mask = inp
-        b = L @ r_blk.T  # (users, block_items) on the MXU
+        b = matmul(L, r_blk.T, precision).astype(L.dtype)  # (users, block_items)
         b = jnp.where(mask, neg, b)
         val = jnp.max(b, axis=1)
         idx = jnp.argmax(b, axis=1).astype(jnp.int32) + blk_idx * block_items
@@ -51,15 +51,13 @@ def top1_blocked(L, R, mask_blocks, block_items: int):
     return best_idx
 
 
-def top1_rated_scan(L, R, rated, block_items: int, items_true: int, col0=0):
+def top1_rated_scan(L, R, rated, block_items: int, items_true: int, col0=0, precision: str = "highest"):
     """(best value, best GLOBAL item index) of the masked top-1 with the
     mask held as a compact rated-items table.
 
     ``rated``: int32[users, P] — each user's rated item indices in
     GLOBAL item space, padded with -1.  The dense users×items mask is
-    never built (for inst50000-5000 it is a 250 MB host array whose
-    transfer through the device attachment cost more than the whole
-    training loop); instead each scanned block compares its item indices
+    never built (for inst50000-5000 it is a 250 MB host array); instead each scanned block compares its item indices
     against the table on device, fused into the masked argmax.
 
     ``col0`` is the global item id of R's row 0 — the sharded top-1
@@ -85,7 +83,7 @@ def top1_rated_scan(L, R, rated, block_items: int, items_true: int, col0=0):
     def body(carry, inp):
         best_val, best_idx = carry
         blk_idx, r_blk = inp
-        b = L @ r_blk.T  # (users, block_items) on the MXU
+        b = matmul(L, r_blk.T, precision).astype(L.dtype)  # (users, block_items)
         lcol = jax.lax.broadcasted_iota(jnp.int32, (users, block_items), 1)
         lcol = lcol + blk_idx * block_items
         gcol = lcol + col0
@@ -118,11 +116,11 @@ def top1_rated_scan(L, R, rated, block_items: int, items_true: int, col0=0):
     return best_val, best_idx
 
 
-def top1_rated_blocked(L, R, rated, block_items: int, items_true: int):
+def top1_rated_blocked(L, R, rated, block_items: int, items_true: int, precision: str = "highest"):
     """Single-chip rated-table masked top-1: int32[users] item indices
     (see :func:`top1_rated_scan`).  Falls back to :func:`top1_blocked`
     via the caller when P is a large fraction of the item count."""
-    return top1_rated_scan(L, R, rated, block_items, items_true)[1]
+    return top1_rated_scan(L, R, rated, block_items, items_true, precision=precision)[1]
 
 
 def make_rated_table(spec: ProblemSpec) -> np.ndarray:

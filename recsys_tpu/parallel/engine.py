@@ -29,10 +29,9 @@ from recsys_tpu.parallel.step import (
 )
 
 def _choose_path(spec: ProblemSpec, cfg: RunConfig, n_devices: int) -> str:
-    """The single-chip ``trainer.choose_path`` cost model with the dense
-    budget scaled per-device (the A/M blocks shard across the mesh).
-    One decision function for both engines: crossover tweaks (e.g. the
-    dense-A transfer budget) apply here automatically."""
+    """The single-device ``trainer.choose_path`` cost model with the
+    dense budget scaled per-device (the A/M blocks shard across the
+    mesh).  One decision function for both engines."""
     from recsys_tpu.engine.trainer import choose_path
 
     return choose_path(spec, cfg, n_devices=n_devices, allow_host=False)
@@ -50,34 +49,23 @@ def factorize_sharded(
     ``putter(global_np, sharding)`` places a host array onto the mesh;
     the default ``jax.device_put`` covers the single-process case, and
     the multi-host layer passes a per-process block uploader so every
-    path here — dense, Pallas-dense, and both COO forms — works
-    unchanged across processes (the reference needed ~330 lines of
-    streamed sends for the same routing, ``matFact-mpi.c:220-457``).
+    path here — dense, BELL and both COO forms — works unchanged across
+    processes (the reference needed ~330 lines of streamed sends for the
+    same routing, ``matFact-mpi.c:220-457``).
     """
-    from recsys_tpu.ops.pallas_dense import mask_is_implicit
+    from recsys_tpu.engine.trainer import coo_use_cumsum, factor_dtype, matmul_precision
 
     if putter is None:
         putter = jax.device_put
-    dt = jnp.dtype(cfg.dtype)
     if mesh is None:
         mesh = make_mesh(spec.users, spec.items, shape=cfg.mesh_shape)
     pu, pi = mesh.devices.shape
 
     path = _choose_path(spec, cfg, pu * pi)
-    if (
-        path in ("dense", "pallas")
-        and cfg.dtype in ("float32", "bfloat16")
-        and spec.nnz
-        and mask_is_implicit(spec)
-    ):
-        # Multi-chip form of the fused Pallas dense path: per-shard
-        # tiled-kernel deltas + the two axis psums.
-        from recsys_tpu.engine.trainer import mxu_precision
-
-        return _factorize_sharded_pallas(spec, mesh, state, mxu_precision(cfg), putter), mesh
     if path == "bell" and spec.nnz:
         return _factorize_sharded_bell(spec, cfg, mesh, state, putter), mesh
 
+    dt = factor_dtype(cfg, path)
     if state is None:
         state = init_factors(spec.users, spec.items, spec.features)
     L0, R0 = shp.pad_factors(
@@ -92,12 +80,11 @@ def factorize_sharded(
     if path == "dense":
         A, M = shp.dense_blocks(spec, pu, pi, dtype=dt)
         sAM = NamedSharding(mesh, P(AXIS_USERS, AXIS_ITEMS))
-        train = make_dense_train(mesh, alpha2, spec.iters)
+        train = make_dense_train(mesh, alpha2, spec.iters, matmul_precision(cfg))
         L, R = train(L0, R0, putter(A, sAM), putter(M, sAM))
-    elif cfg.dtype in ("float32", "bfloat16") and spec.nnz >= spec.users + spec.items:
+    elif coo_use_cumsum(spec, cfg):
         # Speed dtypes: scatter-free prefix-sum form (see ops/coo.py);
-        # hyper-sparse huge-dimension instances keep scatter (nnz gate,
-        # same reasoning as the single-chip engine).
+        # the same rule as the single-device engine.
         shards, u_blk, i_blk = shp.bucket_coo_seg(spec, pu, pi, dtype=dt)
         sE = NamedSharding(mesh, P(AXIS_USERS, AXIS_ITEMS, None))
         dev = [putter(np.asarray(x), sE) for x in shards]
@@ -189,37 +176,7 @@ def _factorize_sharded_bell(spec: ProblemSpec, cfg: RunConfig, mesh, state: MFSt
     return _MF(L=L1, R=R1)
 
 
-def _factorize_sharded_pallas(spec: ProblemSpec, mesh, state: MFState | None, precision: str, putter=jax.device_put) -> MFState:
-    """Per-shard Pallas tiled deltas + axis psums. Pads users/items so
-    each shard's block is a tile multiple; k to the 128-lane tile.
-    Traced under enable_x64(False) — the kernels are all-f32/i32."""
-    from recsys_tpu.parallel.step import make_pallas_dense_train
-
-    pu, pi = mesh.devices.shape
-    users_pad, u_blk, bu = shp.pallas_block_dims(spec.users, pu, 8, 256)
-    items_pad, i_blk, bi = shp.pallas_block_dims(spec.items, pi, 128, 512)
-    K = -(-spec.features // 128) * 128
-    if state is None:
-        state = init_factors(spec.users, spec.items, spec.features)
-    L0 = np.zeros((users_pad, K), np.float32)
-    L0[: spec.users, : spec.features] = state.L
-    R0 = np.zeros((items_pad, K), np.float32)
-    R0[: spec.items, : spec.features] = state.R
-    A = np.zeros((users_pad, items_pad), np.float32)
-    A[spec.rows, spec.cols] = spec.vals
-
-    with jax.enable_x64(False):
-        sL = NamedSharding(mesh, P(AXIS_USERS, None))
-        sR = NamedSharding(mesh, P(AXIS_ITEMS, None))
-        sA = NamedSharding(mesh, P(AXIS_USERS, AXIS_ITEMS))
-        train = make_pallas_dense_train(
-            mesh, np.float32(2.0 * spec.alpha), spec.iters, bu, bi, precision
-        )
-        L, R = train(putter(L0, sL), putter(R0, sR), putter(A, sA))
-    return MFState(L=L, R=R)
-
-
-def sharded_top1_device(state: MFState, spec: ProblemSpec, mesh, putter=None):
+def sharded_top1_device(state: MFState, spec: ProblemSpec, mesh, putter=None, precision: str = "highest"):
     """Distributed masked top-1; returns the device array (u-sharded,
     int32[users_pad]) so multi-process callers can gather it themselves.
 
@@ -235,8 +192,8 @@ def sharded_top1_device(state: MFState, spec: ProblemSpec, mesh, putter=None):
     if putter is None:
         putter = jax.device_put
     pu, pi = mesh.devices.shape
-    # Dims derive from the factor shapes: the Pallas-sharded path pads
-    # beyond the default mesh multiple.
+    # Dims derive from the factor shapes (BELL's un-permuted tables and
+    # the dense/COO padding share the P('u'/'i', None) layout).
     users_pad = state.L.shape[0]
     items_pad = state.R.shape[0]
     i_blk = items_pad // pi
@@ -250,18 +207,20 @@ def sharded_top1_device(state: MFState, spec: ProblemSpec, mesh, putter=None):
         u_blk = users_pad // pu
         cap = (16_000_000 // max(u_blk, 1)) // 128 * 128
         block = min(max(cap, 128), -(-i_blk // 128) * 128)
-        top1_fn = make_sharded_top1_rated(mesh, i_blk, spec.items, block)
+        top1_fn = make_sharded_top1_rated(mesh, i_blk, spec.items, block, precision)
         sT = NamedSharding(mesh, P(AXIS_USERS, None))
         return top1_fn(state.L, state.R, putter(tpad, sT))
     mask = shp.rated_mask_padded(spec, pu, pi, users_pad=users_pad, items_pad=items_pad)
     sM = NamedSharding(mesh, P(AXIS_USERS, AXIS_ITEMS))
-    top1_fn = make_sharded_top1(mesh, i_blk)
+    top1_fn = make_sharded_top1(mesh, i_blk, precision)
     return top1_fn(state.L, state.R, putter(mask, sM))
 
 
-def recommend_sharded(state: MFState, spec: ProblemSpec, mesh) -> np.ndarray:
+def recommend_sharded(state: MFState, spec: ProblemSpec, mesh, cfg: RunConfig = RunConfig()) -> np.ndarray:
     """Distributed masked top-1; returns int32[users] on host."""
-    top1 = sharded_top1_device(state, spec, mesh)
+    from recsys_tpu.engine.trainer import matmul_precision
+
+    top1 = sharded_top1_device(state, spec, mesh, precision=matmul_precision(cfg))
     return np.asarray(top1)[: spec.users]
 
 
@@ -269,25 +228,41 @@ def run(spec: ProblemSpec, cfg: RunConfig = RunConfig()) -> tuple[str, np.ndarra
     from recsys_tpu.io.writers import format_recommendations
 
     state, mesh = factorize_sharded(spec, cfg)
-    top1 = recommend_sharded(state, spec, mesh)
+    top1 = recommend_sharded(state, spec, mesh, cfg)
     return format_recommendations(top1, spec.rated_counts(), spec.items), top1
 
 
-def dryrun(n_devices: int, *, tpu_tolerances: bool | None = None) -> None:
-    """Driver hook: validate the multi-chip path NUMERICALLY, not just
+# dryrun tolerances keyed by the engine's matmul precision
+# (``trainer.matmul_precision``): (rtol, atol, top-1 agreement floor).
+# "highest" products are true f32, so a sharded run differs from the
+# single-device run only in reduction order and argmaxes are stable;
+# "bf16" operands carry 8 mantissa bits (~4e-3 relative per product),
+# so factors drift ~1e-2 and near-tie argmaxes can legitimately flip.
+# A systematic sharding bug (lost psum, off-by-one block, double-counted
+# base) is orders of magnitude above either bound.
+DRYRUN_TOLERANCES = {
+    "highest": (3e-4, 1e-5, 1.0),
+    "bf16": (2e-2, 1e-3, 0.95),
+}
+
+
+def dryrun(n_devices: int, *, dtype: str = "float32") -> None:
+    """Driver hook: validate the multi-device path NUMERICALLY, not just
     for crashes — a systematic sharded-numerics bug that keeps shapes
     intact must fail here (the reference's analogous guarantee is its
     cluster runs matching golden output, ``matFact-mpi.c:155-214``).
 
     1. Tiny smoke: one step of all three sharded formulations + top-1.
     2. 200x300, 5 iters: every sharded formulation's factors compared
-       against the SINGLE-CHIP engine (as ``test_extreme_shapes`` does),
-       and the distributed top-1 compared against the numpy oracle
-       applied to those same factors (rated-table masking branch).
+       against the SINGLE-DEVICE engine on the same path and dtype, and
+       the distributed top-1 compared against the numpy oracle applied
+       to those same factors (rated-table masking branch).
     3. A hub-user instance whose max rated count exceeds the compact
        rated-table cap, driving the dense-mask top-1 branch, again
        checked against the numpy oracle.
     """
+    from recsys_tpu.engine import trainer
+    from recsys_tpu.engine.oracle import top1_numpy
     from recsys_tpu.io.generator import generate_instance
 
     devs = jax.devices()[:n_devices]
@@ -300,46 +275,32 @@ def dryrun(n_devices: int, *, tpu_tolerances: bool | None = None) -> None:
 
     spec = generate_instance(12, 20, 4, 1, 5, iters=1, alpha=0.01, seed=7)
     for path in ("dense", "coo", "bell"):
-        cfg = RunConfig(dtype="float32", path=path)
+        cfg = RunConfig(dtype=dtype, path=path)
         state, _ = factorize_sharded(spec, cfg, mesh=mesh)
-        top1 = recommend_sharded(state, spec, mesh)
+        top1 = recommend_sharded(state, spec, mesh, cfg)
         assert top1.shape == (spec.users,)
 
-    from recsys_tpu.engine import trainer
-    from recsys_tpu.engine.oracle import top1_numpy
-
-    # Tolerances are backend-aware: on the CPU mesh (the driver's
-    # configuration) f32 dots are true f32 and argmaxes are stable, so
-    # the bounds are tight; on real TPU hardware the sharded step's
-    # default-precision matmuls run as single-pass bf16 (~1e-2
-    # relative) and near-tie argmaxes can legitimately flip — a
-    # systematic sharding bug (lost psum, off-by-one block,
-    # double-counted base) is orders of magnitude above either bound.
-    # ``tpu_tolerances`` overrides the backend detection so tests can run
-    # the loose branch on the CPU mesh (round-4 review weak #6: without
-    # this, the TPU bounds were dead code under every test).
-    on_tpu = jax.default_backend() == "tpu" if tpu_tolerances is None else tpu_tolerances
-    rtol, atol = (2e-2, 1e-3) if on_tpu else (3e-4, 1e-5)
-    min_top1_agree = 0.95 if on_tpu else 1.0
+    rtol, atol, min_top1_agree = DRYRUN_TOLERANCES[trainer.matmul_precision(RunConfig(dtype=dtype))]
 
     spec2 = generate_instance(200, 300, 8, 1, 6, iters=5, alpha=0.02, seed=11)
-    ref = trainer.factorize(spec2, RunConfig(dtype="float32", path="coo"))
-    refL = np.asarray(ref.L)[: spec2.users, : spec2.features]
-    refR = np.asarray(ref.R)[: spec2.items, : spec2.features]
     for path in ("dense", "coo", "bell"):
-        state, _ = factorize_sharded(spec2, RunConfig(dtype="float32", path=path), mesh=mesh)
-        L = np.asarray(state.L)[: spec2.users, : spec2.features]
-        R = np.asarray(state.R)[: spec2.items, : spec2.features]
+        cfg = RunConfig(dtype=dtype, path=path)
+        ref = trainer.factorize(spec2, cfg)
+        refL = np.asarray(ref.L, np.float64)[: spec2.users, : spec2.features]
+        refR = np.asarray(ref.R, np.float64)[: spec2.items, : spec2.features]
+        state, _ = factorize_sharded(spec2, cfg, mesh=mesh)
+        L = np.asarray(state.L, np.float64)[: spec2.users, : spec2.features]
+        R = np.asarray(state.R, np.float64)[: spec2.items, : spec2.features]
         np.testing.assert_allclose(
             L, refL, rtol=rtol, atol=atol,
-            err_msg=f"sharded {path}: L drifted from the single-chip engine",
+            err_msg=f"sharded {path}: L drifted from the single-device engine",
         )
         np.testing.assert_allclose(
             R, refR, rtol=rtol, atol=atol,
-            err_msg=f"sharded {path}: R drifted from the single-chip engine",
+            err_msg=f"sharded {path}: R drifted from the single-device engine",
         )
-        top1 = recommend_sharded(state, spec2, mesh)
-        exp = top1_numpy(L.astype(np.float64), R.astype(np.float64), spec2)
+        top1 = recommend_sharded(state, spec2, mesh, cfg)
+        exp = top1_numpy(L, R, spec2)
         agree = float((top1 == exp).mean())
         if agree < min_top1_agree:
             raise AssertionError(
@@ -366,11 +327,12 @@ def dryrun(n_devices: int, *, tpu_tolerances: bool | None = None) -> None:
         rows=rows.astype(np.int32), cols=cols.astype(np.int32), vals=vals,
     )
     assert int(np.bincount(spec3.rows).max()) > max(spec3.items // 8, 128)
-    state, _ = factorize_sharded(spec3, RunConfig(dtype="float32", path="coo"), mesh=mesh)
-    L = np.asarray(state.L)[: spec3.users, : spec3.features]
-    R = np.asarray(state.R)[: spec3.items, : spec3.features]
-    top1 = recommend_sharded(state, spec3, mesh)
-    exp = top1_numpy(L.astype(np.float64), R.astype(np.float64), spec3)
+    cfg = RunConfig(dtype=dtype, path="coo")
+    state, _ = factorize_sharded(spec3, cfg, mesh=mesh)
+    L = np.asarray(state.L, np.float64)[: spec3.users, : spec3.features]
+    R = np.asarray(state.R, np.float64)[: spec3.items, : spec3.features]
+    top1 = recommend_sharded(state, spec3, mesh, cfg)
+    exp = top1_numpy(L, R, spec3)
     agree = float((top1 == exp).mean())
     if agree < min_top1_agree:
         raise AssertionError(

@@ -4,11 +4,11 @@ The reference's multi-node story is MPI: mpirun launches P ranks, rank 0
 streams COO chunks to owners (``matFact-mpi.c:220-457``), factor blocks
 are scattered in RNG order (``matFact-mpi.c:459-515``) and every
 iteration ends in two Allreduces over row/col communicators
-(``matFact-mpi.c:207-209``). The TPU-native analogue:
+(``matFact-mpi.c:207-209``). The JAX analogue:
 
 * ``jax.distributed.initialize`` replaces ``MPI_Init`` — one process per
-  host, each seeing its local chips; collectives ride ICI within a slice
-  and DCN across slices, scheduled by XLA, not hand-written sends.
+  host, each seeing its local devices; collectives (NCCL on GPUs) are
+  scheduled by XLA, not hand-written sends.
 * The global 2-D ('u', 'i') mesh spans all processes' devices. The same
   ``shard_map`` training step from ``parallel/step.py`` runs unchanged —
   multi-host is a deployment property of the mesh, not a different code
@@ -28,7 +28,7 @@ iteration ends in two Allreduces over row/col communicators
   'i'; ``process_allgather`` collects the 'u'-sharded indices to every
   host (the reference's Gatherv to root, ``matFact-mpi.c:105-144``).
 
-Single-process (CPU mesh or one host × N chips) is the degenerate case:
+Single-process (CPU mesh or one host × N devices) is the degenerate case:
 ``initialize()`` is a no-op and the per-process block set is the whole
 problem — which is how the unit tests exercise this module.
 """
@@ -72,7 +72,7 @@ def factorize_multihost(
     mesh=None,
 ) -> tuple[MFState, "jax.sharding.Mesh"]:
     """Training over the global (all-process) mesh — every path of the
-    sharded engine (dense, Pallas-dense, and both COO forms, so the
+    sharded engine (dense, BELL and both COO forms, so the
     huge sparse instances multi-host exists for route here too).
 
     The only difference from the single-process engine is array
@@ -87,14 +87,17 @@ def factorize_multihost(
     return factorize_sharded(spec, cfg, mesh=mesh, putter=_local_block_array)
 
 
-def recommend_multihost(state: MFState, spec: ProblemSpec, mesh) -> np.ndarray:
+def recommend_multihost(state: MFState, spec: ProblemSpec, mesh, cfg: RunConfig = RunConfig()) -> np.ndarray:
     """Distributed top-1, gathered to every process (Gatherv analogue).
     Shares the single-process pipeline (compact rated-table masking, see
     ``parallel.engine.sharded_top1_device``); only array placement and
     the final cross-process gather differ."""
+    from recsys_tpu.engine.trainer import matmul_precision
     from recsys_tpu.parallel.engine import sharded_top1_device
 
-    top1 = sharded_top1_device(state, spec, mesh, putter=_local_block_array)
+    top1 = sharded_top1_device(
+        state, spec, mesh, putter=_local_block_array, precision=matmul_precision(cfg)
+    )
     if jax.process_count() > 1:
         from jax.experimental import multihost_utils
 
@@ -106,5 +109,5 @@ def run(spec: ProblemSpec, cfg: RunConfig = RunConfig()) -> tuple[str, np.ndarra
     from recsys_tpu.io.writers import format_recommendations
 
     state, mesh = factorize_multihost(spec, cfg)
-    top1 = recommend_multihost(state, spec, mesh)
+    top1 = recommend_multihost(state, spec, mesh, cfg)
     return format_recommendations(top1, spec.rated_counts(), spec.items), top1

@@ -212,23 +212,11 @@ def rated_mask_padded(spec: ProblemSpec, pu: int, pi: int, users_pad: int | None
     """Bool rated-mask padded like dense_blocks; padded items count as
     rated so they can never win the top-1 (sentinel semantics of
     ``matFact-mpi.c:79-96`` without the sentinel). Explicit pad dims
-    override the default pad-to-mesh-multiple (the Pallas-sharded path
-    pads further, to tile multiples)."""
+    override the default pad-to-mesh-multiple (the sharded BELL path
+    pads each block by one zero row)."""
     up = users_pad if users_pad is not None else pad_up(spec.users, pu)
     ip = items_pad if items_pad is not None else pad_up(spec.items, pi)
     m = np.zeros((up, ip), dtype=bool)
     m[spec.rows, spec.cols] = True
     m[:, spec.items :] = True
     return m
-
-
-def pallas_block_dims(n: int, parts: int, quantum: int, tile: int) -> tuple[int, int, int]:
-    """(n_pad, block, tile) for the Pallas-sharded dense path: per-shard
-    block a multiple of ``quantum``, and of ``tile`` when larger."""
-    blk = pad_up(-(-n // parts), quantum)
-    if blk > tile:
-        blk = pad_up(blk, tile)
-        t = tile
-    else:
-        t = blk
-    return parts * blk, blk, t

@@ -7,7 +7,8 @@ communicator, R-deltas over the grid-column communicator. Here the
 entire iteration loop runs inside one ``shard_map``-ped, jitted
 program: per-shard delta computation followed by ``lax.psum`` over the
 'i' axis (for ΔL) and the 'u' axis (for ΔR). XLA schedules both
-all-reduces on ICI and overlaps them with compute; there is no
+all-reduces (NCCL over NVLink on a GPU host) and overlaps them with
+compute; there is no
 count-the-base-once dance (``matFact-mpi.c:187-188``) because only the
 deltas are summed.
 
@@ -27,22 +28,25 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 from jax import shard_map
 
+from recsys_tpu.ops.coo import prefix_segment_sums
+from recsys_tpu.ops.dense import matmul
 from recsys_tpu.parallel.mesh import AXIS_ITEMS, AXIS_USERS
 
 
-def make_dense_train(mesh, alpha2, iters: int):
+def make_dense_train(mesh, alpha2, iters: int, precision: str = "highest"):
     """Jitted sharded dense trainer: (L, R, A, M) -> (L', R').
 
     L: (users_pad, k) sharded P('u', None); R: (items_pad, k) P('i', None);
-    A, M: (users_pad, items_pad) P('u', 'i').
+    A, M: (users_pad, items_pad) P('u', 'i').  ``precision`` is the
+    engine's matmul precision (``trainer.matmul_precision``).
     """
 
     def loop(L, R, A, M):
         def body(_, c):
             L, R = c
-            E = M * (A - L @ R.T)
-            dL = jax.lax.psum(E @ R, AXIS_ITEMS)
-            dR = jax.lax.psum(E.T @ L, AXIS_USERS)
+            E = M * (A - matmul(L, R.T, precision))
+            dL = jax.lax.psum(matmul(E, R, precision), AXIS_ITEMS)
+            dR = jax.lax.psum(matmul(E.T, L, precision), AXIS_USERS)
             return L + alpha2 * dL, R + alpha2 * dR
 
         return jax.lax.fori_loop(0, iters, body, (L, R))
@@ -103,44 +107,11 @@ def make_coo_train(mesh, alpha2, iters: int, u_blk: int, i_blk: int):
     return jax.jit(sharded, donate_argnums=(0, 1))
 
 
-def make_pallas_dense_train(mesh, alpha2, iters: int, bu: int, bi: int, precision: str = "highest"):
-    """Jitted sharded dense trainer whose per-device gradient is the
-    fused Pallas tiled kernel (implicit mask: A != 0), followed by the
-    two axis psums — the multi-chip form of the single-chip Pallas path.
-
-    L: (users_pad, k) P('u', None); R: (items_pad, k) P('i', None);
-    A: (users_pad, items_pad) P('u', 'i'). Per-shard blocks must be
-    multiples of (bu, bi); k a multiple of 128.
-    """
-    from recsys_tpu.ops.pallas_dense import tiled_deltas
-
-    def loop(L, R, A):
-        def body(_, c):
-            L, R = c
-            dL, dR = tiled_deltas(L, R, A, bu=bu, bi=bi, precision=precision)
-            dL = jax.lax.psum(dL, AXIS_ITEMS)
-            dR = jax.lax.psum(dR, AXIS_USERS)
-            return L + alpha2 * dL, R + alpha2 * dR
-
-        return jax.lax.fori_loop(0, iters, body, (L, R))
-
-    sharded = shard_map(
-        loop,
-        mesh=mesh,
-        in_specs=(P(AXIS_USERS, None), P(AXIS_ITEMS, None), P(AXIS_USERS, AXIS_ITEMS)),
-        out_specs=(P(AXIS_USERS, None), P(AXIS_ITEMS, None)),
-        # pallas_call outputs carry no vma annotation; the psums make the
-        # result's axis-variance explicit anyway.
-        check_vma=False,
-    )
-    return jax.jit(sharded, donate_argnums=(0, 1))
-
-
 def make_coo_seg_train(mesh, alpha2, iters: int, u_blk: int, i_blk: int):
     """Jitted sharded scatter-free COO trainer (prefix-sum reduction).
 
     The sharded analogue of ``coo_gd_step_cumsum``: per-shard segment
-    sums computed as cumsum + boundary differences (no TPU scatter-add),
+    sums computed as cumsum + boundary differences (no scatter-add),
     then the two axis psums. Entry buckets come from
     ``sharding.bucket_coo_seg``; padding entries carry weight 0.
     """
@@ -155,16 +126,12 @@ def make_coo_seg_train(mesh, alpha2, iters: int, u_blk: int, i_blk: int):
             l = L[rows]
             r = R[cols]
             err = w * alpha2 * (vals - jnp.sum(l * r, axis=-1))
-            g = err[:, None] * r
-            S = jnp.concatenate([jnp.zeros((1, g.shape[1]), g.dtype), jnp.cumsum(g, axis=0)])
-            dL = S[row_start[1:]] - S[row_start[:-1]]
+            dL = prefix_segment_sums(err[:, None] * r, row_start)
 
             l2 = L[rows_cs]
             r2 = R[cols_cs]
             err2 = w_cs * alpha2 * (vals_cs - jnp.sum(l2 * r2, axis=-1))
-            g2 = err2[:, None] * l2
-            S2 = jnp.concatenate([jnp.zeros((1, g2.shape[1]), g2.dtype), jnp.cumsum(g2, axis=0)])
-            dR = S2[col_start[1:]] - S2[col_start[:-1]]
+            dR = prefix_segment_sums(err2[:, None] * l2, col_start)
 
             dL = jax.lax.psum(dL, AXIS_ITEMS)
             dR = jax.lax.psum(dR, AXIS_USERS)
@@ -238,7 +205,7 @@ def make_bell_train(mesh, alpha2, iters: int, meta):
     return jax.jit(sharded, donate_argnums=(0, 1))
 
 
-def make_sharded_top1_rated(mesh, i_blk: int, items_true: int, block: int):
+def make_sharded_top1_rated(mesh, i_blk: int, items_true: int, block: int, precision: str = "highest"):
     """Jitted sharded top-1 with the rated mask as a compact table:
     (L, R, rated) -> int32[users_pad] global item indices.
 
@@ -258,7 +225,7 @@ def make_sharded_top1_rated(mesh, i_blk: int, items_true: int, block: int):
     def local(L, R, rated):
         my_i = jax.lax.axis_index(AXIS_ITEMS)
         col0 = my_i * i_blk
-        val, gidx = top1_rated_scan(L, R, rated, block, items_true, col0)
+        val, gidx = top1_rated_scan(L, R, rated, block, items_true, col0, precision)
         vals_g = jax.lax.all_gather(val, AXIS_ITEMS)  # (pi, u_blk), ascending blocks
         idxs_g = jax.lax.all_gather(gidx, AXIS_ITEMS)
         # First max across ascending contiguous blocks = lowest global index.
@@ -278,7 +245,7 @@ def make_sharded_top1_rated(mesh, i_blk: int, items_true: int, block: int):
     return jax.jit(sharded)
 
 
-def make_sharded_top1(mesh, i_blk: int):
+def make_sharded_top1(mesh, i_blk: int, precision: str = "highest"):
     """Jitted sharded top-1: (L, R, rated_mask) -> int32[users_pad].
 
     Per-shard masked argmax over the local item block, then the
@@ -287,7 +254,7 @@ def make_sharded_top1(mesh, i_blk: int):
     """
 
     def local(L, R, mask):
-        b = L @ R.T  # (u_blk, i_blk) on this shard
+        b = matmul(L, R.T, precision).astype(L.dtype)  # (u_blk, i_blk) on this shard
         b = jnp.where(mask, -jnp.inf, b)
         val = jnp.max(b, axis=1)
         # First maximum within the block = lowest local index.

@@ -2,7 +2,7 @@
 
 The reference has no checkpointing — state lives in process memory for
 the fixed iteration count and dies with the run (SURVEY §5). For a
-production TPU service that is not acceptable: long runs on preemptible
+production service that is not acceptable: long runs on preemptible
 hardware need snapshot/restore. State is tiny (two dense factor tables
 plus the iteration cursor), so a single-file numpy archive is the whole
 mechanism; the arrays are fetched from device, written atomically, and

@@ -8,7 +8,7 @@ MPI on a real cluster; we get N devices from one process).
 
 import os
 
-os.environ["JAX_PLATFORMS"] = "cpu"  # force: the ambient env may point at a TPU
+os.environ["JAX_PLATFORMS"] = "cpu"  # force: the ambient env may point at a GPU
 os.environ.setdefault("JAX_ENABLE_X64", "1")  # conformance-grade f64 on CPU
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:

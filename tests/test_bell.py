@@ -127,11 +127,11 @@ def test_choose_path_dtype_aware():
     spec = generate_instance(2000, 2000, 4, 2, 4, iters=1, alpha=0.01, seed=2)
     assert trainer.choose_path(spec, RunConfig(dtype="float32"), allow_host=False) == "bell"
     assert trainer.choose_path(spec, RunConfig(dtype="float64"), allow_host=False) == "bell"
-    # Dense-ish instance: speed dtypes stay on the dense kernels, exact
+    # Dense-ish instance: speed dtypes stay on the dense path, exact
     # f64 still prefers the sparse form once cells >> slots.
     ml = load_problem(str(FIXTURES / "instML100k.in"))
     assert trainer.choose_path(ml, RunConfig(dtype="float64")) == "bell"
-    assert trainer.choose_path(ml, RunConfig(dtype="float32")) in ("pallas", "dense")
+    assert trainer.choose_path(ml, RunConfig(dtype="float32")) == "dense"
 
 
 def test_regather_variant_equivalent(sparse_spec):
@@ -168,9 +168,8 @@ def test_chunked_rows_independent(sparse_spec):
     each row's mathematical sum.  XLA may reassociate a reduction
     differently per piece shape, so the guarantee is a-few-ulps factor
     agreement plus an UNCHANGED argmax output — the conformance
-    contract for the chunked regime (the dtype whose oversized gathers
-    crashed the TPU worker in round 2 was f64; the byte budget is now
-    dtype-aware).  A tiny budget exercises both the _delta_side
+    contract for the chunked regime (the byte budget is dtype-aware).
+    A tiny budget exercises both the _delta_side
     flat-gather gate and _delta_bucket's recursive split."""
     from recsys_tpu.ops import bell as bell_mod
 
@@ -193,7 +192,7 @@ def test_chunked_rows_independent(sparse_spec):
 
 
 def test_split_gather_gate_bands():
-    """Gate bands (measured, probe_split_sides.py): k <= 21 always
+    """Gate bands (tuned on a TPU): k <= 21 always
     splits; 22 <= k <= 42 splits only when the side's set is chunked
     (where piece-wise fusion absorbs the join tax); k > 42 never."""
     from recsys_tpu.ops import bell as bell_mod
@@ -210,8 +209,7 @@ def test_split_gather_gate_bands():
 def test_chunk_grain_bounds():
     """The fuse grain is 64 MB for small sets, grows past
     CHUNK_MAX_PIECES pieces, and never exceeds the 512 MB staging guard
-    (it is a BYTE budget, so f64 rows get half the cells of f32 — the
-    dtype-unaware cell constant crashed the TPU worker in round 2)."""
+    (it is a BYTE budget, so f64 rows get half the cells of f32)."""
     from recsys_tpu.ops import bell as bell_mod
 
     g = bell_mod._chunk_grain
@@ -220,11 +218,6 @@ def test_chunk_grain_bounds():
     assert g(big) == bell_mod.CHUNK_BYTES
     mid = 32 * bell_mod.CHUNK_GRAIN_BYTES
     assert g(mid) == mid // bell_mod.CHUNK_MAX_PIECES
-    # Wide-f64-row cap: k=200 f64 rows (1600 B) faulted the TPU worker
-    # at every >=64 MB piece size; 32 MB is the proven-good grain.
-    assert g(mid, row_bytes=1600, f64=True) == bell_mod.WIDE_F64_CHUNK_BYTES
-    assert g(mid, row_bytes=1600, f64=False) == mid // bell_mod.CHUNK_MAX_PIECES
-    assert g(mid, row_bytes=240, f64=True) == mid // bell_mod.CHUNK_MAX_PIECES
 
 
 def test_regather_disabled_for_f64():
@@ -285,15 +278,11 @@ def test_native_side_tables_bit_identical(dtype):
 
 
 def test_split2_is_not_exact():
-    """Why there is no 2xf32 split tier (VERDICT r3 #3 asked): the
+    """Why there is no 2xf32 split tier: the
     residual x - f32(x) of a full-precision f64 carries up to 29
     significant bits — more than f32's 24 — so hi + f32(x - hi) loses
     low bits and the reconstruction is NOT bit-exact.  (The 3-way split
-    is exact because the SECOND residual fits f32.)  A 2xf32 split
-    would also buy nothing at the gather layer: the measured engine
-    rate is row-width-independent up to 512 B rows
-    (probe_gather_rate.py), and both 2k and 3k f32 rows sit under that
-    for every k the split bands cover."""
+    is exact because the SECOND residual fits f32.)"""
     import jax.numpy as jnp
 
     from recsys_tpu.ops import bell as bell_mod
@@ -328,8 +317,7 @@ def _split3_scalar(x):
 
 
 def test_triple_accum_beats_f64_in_gd_domain():
-    """Round-5 adjudication of the split-f32 ACCUMULATION (VERDICT r4
-    next #1), part 1: f32-triple accumulation of f64 terms (Shewchuk
+    """The split-f32 ACCUMULATION, part 1: f32-triple accumulation of f64 terms (Shewchuk
     grow-expansion over 2Sum, components capped at 3 f32s) is at least
     f64-grade — the capped ladder self-spaces at ~24-bit steps, so a
     dropped component sits ~72 bits below the running magnitude, vs the

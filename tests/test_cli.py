@@ -87,23 +87,27 @@ def test_bench_emits_json(capsys):
 
     row = json.loads(out.splitlines()[-1])
     assert row["instance"] == "inst0.in" and row["updates_per_s"] > 0
+    assert row["platform"] == "cpu" and row["device_count"] >= 1 and row["device_kind"]
 
 
-def test_bf16_below_floor_warns_and_strict_refuses(capsys):
-    """bf16 on a shape the bench marked BELOW-FLOOR must not run silently
-    (round-4 review weak #4): plain run warns with the measured agreement,
-    --strict refuses before training."""
+def test_bf16_below_floor_warns_and_strict_refuses(capsys, monkeypatch):
+    """bf16 on a shape measured below the floor must not run silently:
+    plain run warns with the measured agreement, --strict refuses
+    before training."""
+    from recsys_tpu.bench import bf16_policy
+
+    monkeypatch.setitem(bf16_policy.MEASURED, (500, 500, 20, 10000), 0.736)
     rc = cli.main(["run", str(FIXTURES / "inst500-500-20-2-100.in"),
                    "--dtype", "bfloat16", "--strict", "--no-time"])
     captured = capsys.readouterr()
     assert rc == 2
     assert captured.out == ""  # refused before any recommendation line
     assert "73.60% argmax agreement" in captured.err
-    assert "bf16x3" in captured.err
+    assert "--dtype float32" in captured.err
 
 
 def test_bf16_unknown_shape_warns(capsys):
-    """Unbenched shapes get the generic lossy-mode warning but still run."""
+    """Unmeasured shapes get the generic lossy-mode warning but still run."""
     rc = cli.main(["run", str(FIXTURES / "inst0.in"), "--dtype", "bfloat16",
                    "--path", "dense", "--no-time"])
     captured = capsys.readouterr()
@@ -113,17 +117,29 @@ def test_bf16_unknown_shape_warns(capsys):
 
 
 def test_bf16_policy_table():
-    """Policy verdicts match the committed bench rows (BENCHMARKS.md)."""
+    """Policy verdicts follow the measured table: above the floor runs
+    even under --strict, below it and unmeasured shapes are refused."""
     from recsys_tpu.bench import bf16_policy
+    from recsys_tpu.io.generator import ensure_fixture
     from recsys_tpu.io.parser import load_problem
 
     ml100k = load_problem(str(FIXTURES / "instML100k.in"))
-    assert bf16_policy.lookup(ml100k) == 0.9883
-    assert bf16_policy.check(ml100k, strict=True)  # above floor: runs even strict
-    ml1m = load_problem(str(FIXTURES / "gen-instML1M.in"))
-    assert bf16_policy.lookup(ml1m) == 0.9669  # below floor
-    assert not bf16_policy.check(ml1m, strict=True)
-    assert bf16_policy.check(ml1m, strict=False)
+    ml1m = load_problem(ensure_fixture("gen-instML1M", FIXTURES))
+    for spec in (ml100k, ml1m):
+        agree = bf16_policy.lookup(spec)
+        assert agree is None or 0.0 < agree <= 1.0
+        assert bf16_policy.check(spec, strict=True) == (
+            agree is not None and agree >= bf16_policy.FLOOR
+        )
+        assert bf16_policy.check(spec, strict=False)
+
+
+def test_path_option_has_no_kernel_choice():
+    """The device paths the CLI offers: auto, dense, bell, coo."""
+    with pytest.raises(SystemExit):
+        cli.main(["run", str(FIXTURES / "inst0.in"), "--path", "pallas"])
+    with pytest.raises(SystemExit):
+        cli.main(["run", str(FIXTURES / "inst0.in"), "--precision", "bf16x3"])
 
 
 def test_verbose_banner_on_stderr(capsys):

@@ -3,7 +3,7 @@
 The integer outputs must be BIT-exact against the host generator for
 any n (block-aligned or not) and across sequential calls; the f32
 scaled values are allowed ~2 ulp (the host divides in f64 and casts).
-Runs on the CPU test mesh — the generator is plain XLA, no Pallas.
+Runs on the CPU test mesh — the generator is plain XLA.
 """
 
 import numpy as np

@@ -45,34 +45,21 @@ def test_format_recommendations_skip_rule():
     assert format_recommendations(top1, rated, items=5) == "2\n"
 
 
-def test_zero_rating_disables_pallas_path():
-    spec = _spec_all_rated_user()
-    spec = dataclasses.replace(spec, vals=spec.vals.copy())
-    spec.vals[3] = 0.0  # a legitimate zero rating: mask != (A != 0)
-    from recsys_tpu.ops.pallas_dense import mask_is_implicit
-
-    assert not mask_is_implicit(spec)
-    with pytest.raises(ValueError, match="non-zero"):
-        trainer.factorize(spec, RunConfig(dtype="float32", path="pallas"))
-    # auto never selects pallas for it; dense handles the zero fine.
-    out, _ = trainer.run(spec, RunConfig(dtype="float64", path="dense"))
-    assert len(out.splitlines()) == 2
-
-
-def test_zero_rating_run_pallas_raises():
-    # run() with explicit path="pallas" must hit the same implicit-mask
-    # gate as factorize() — not silently train with the zero masked out
-    # (ADVICE r1, medium).
+@pytest.mark.parametrize("path", ["dense", "bell"])
+def test_zero_rating_is_a_rating(path):
+    """A legitimate zero rating is an observed cell (mask != (A != 0)):
+    both the dense mask and BELL's real-row slots must train on it
+    exactly like the oracle does."""
     spec = _spec_all_rated_user()
     spec = dataclasses.replace(spec, vals=spec.vals.copy())
     spec.vals[3] = 0.0
-    with pytest.raises(ValueError, match="non-zero"):
-        trainer.run(spec, RunConfig(dtype="float32", path="pallas"))
+    out, _ = trainer.run(spec, RunConfig(dtype="float64", path=path))
+    assert out == run_oracle(spec)
 
 
 def test_unsorted_entries_rejected_by_sparse_builders():
     # Sparse table builders assume row-major sorted entries; unsorted
-    # input must raise, not silently build corrupt tables (ADVICE r1).
+    # input must raise, not silently build corrupt tables.
     spec = _spec_all_rated_user()
     order = np.array([1, 0, 2, 3, 4, 5, 6])
     spec = dataclasses.replace(

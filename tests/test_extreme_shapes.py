@@ -50,8 +50,7 @@ def test_inst1000_1e6_fixture_executes():
     assert not np.allclose(np.asarray(st_b.R)[rated], R32[rated])
     np.testing.assert_array_equal(np.asarray(st_b.R)[~rated], R32[~rated])
     # Cross-check against the scatter-COO formulation (the 1M-segment
-    # segment_sum program — the shape where TPU scatter compile
-    # pathology lives; on the CPU mesh it compiles and must agree).
+    # segment_sum program; on the CPU mesh it compiles and must agree).
     # k reduced for the cross-check to keep the 4 GB factor tables out
     # of the default suite; the 1M-segment dimension is what matters.
     small = dataclasses.replace(spec, features=64)

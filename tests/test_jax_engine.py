@@ -41,8 +41,9 @@ def test_dense_coo_equivalence_f64():
 @pytest.mark.parametrize("inst", ["inst0", "inst1", "inst2", "inst30-40-10-2-10"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_golden_small(inst, dtype):
-    """End-to-end run matches golden .out — including in float32, the TPU
-    compute dtype (argmax outputs are robust to f32 drift on these)."""
+    """End-to-end run matches golden .out — including in float32, the
+    accelerator speed dtype (argmax outputs are robust to f32 drift on
+    these)."""
     spec = load_problem(FIXTURES / f"{inst}.in")
     out, _ = trainer.run(spec, RunConfig(dtype=dtype))
     assert out == read_golden(inst)
@@ -77,8 +78,7 @@ def test_top1_multi_block_tie_break():
 
 @pytest.mark.slow
 def test_golden_mid_f64():
-    """f64 is the exact-conformance mode (on TPU it lowers to double-float
-    matmul emulation and still matched 0/943 + 0/500 on real hardware)."""
+    """f64 is the exact-conformance mode."""
     spec = load_problem(FIXTURES / "inst500-500-20-2-100.in")
     out, _ = trainer.run(spec, RunConfig(dtype="float64"))
     assert out == read_golden("inst500-500-20-2-100")
@@ -90,7 +90,7 @@ def test_golden_mid_f64():
     [("instML100k", 0.98), ("inst500-500-20-2-100", 0.70)],
 )
 def test_fp32_argmax_agreement(inst, min_agreement):
-    """f32 (the TPU speed mode) drifts from the f64 trajectory over
+    """f32 (the speed mode) drifts from the f64 trajectory over
     thousands of iterations; argmax agreement stays high on ML100k
     (measured 932/943) and degrades on the α=1e-3, 10k-iteration
     instance (measured 368/500) — pinned here so regressions surface."""
@@ -133,8 +133,8 @@ def test_coo_cumsum_step_matches_scatter_step():
 
 
 def test_bfloat16_dense_path_cpu_smoke():
-    """bfloat16 falls back to the XLA dense path off-TPU and still
-    produces a plausible recommendation list."""
+    """bfloat16 on the XLA dense path (f32 factors, bf16 matmul
+    operands) produces a plausible recommendation list."""
     from recsys_tpu.config import RunConfig
     from recsys_tpu.engine import trainer
     from recsys_tpu.io.generator import generate_instance
@@ -147,23 +147,3 @@ def test_bfloat16_dense_path_cpu_smoke():
     out64, top64 = trainer.run(spec, RunConfig(dtype="float64", path="dense"))
     agree = (top1 == top64).mean()
     assert agree >= 0.8, agree
-
-
-def test_sub_mxu_f64_routes_to_host(monkeypatch):
-    """Tiny exact-f64 problems route to the host CPU device when the
-    default backend is a TPU (sub-MXU work is op-overhead bound there);
-    big ones and speed dtypes stay on the accelerator."""
-    import jax
-
-    from recsys_tpu.engine.trainer import _sub_mxu_host_device
-    from recsys_tpu.io.parser import load_problem
-
-    tiny = load_problem(str(FIXTURES / "inst1.in"))
-    big = load_problem(str(FIXTURES / "instML100k.in"))
-    # On the CPU test backend nothing routes (already on host).
-    assert _sub_mxu_host_device(tiny, RunConfig(dtype="float64")) is None
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    dev = _sub_mxu_host_device(tiny, RunConfig(dtype="float64"))
-    assert dev is not None and dev.platform == "cpu"
-    assert _sub_mxu_host_device(big, RunConfig(dtype="float64")) is None
-    assert _sub_mxu_host_device(tiny, RunConfig(dtype="float32")) is None

@@ -35,11 +35,11 @@ def test_multihost_equals_singlehost_engine():
     assert out_mh == out_sh
 
 
-def test_multihost_pallas_route_golden():
-    """f32 auto on an implicit-mask instance routes through the Pallas
-    sharded step with per-process block assembly; golden end-to-end."""
+def test_multihost_dense_route_golden():
+    """f32 on the sharded dense route (true-f32 products) with
+    per-process block assembly; golden end-to-end."""
     spec = load_problem(str(FIXTURES / "inst30-40-10-2-10.in"))
-    out, _ = multihost.run(spec, RunConfig(dtype="float32"))
+    out, _ = multihost.run(spec, RunConfig(dtype="float32", path="dense"))
     assert out == open(FIXTURES / "inst30-40-10-2-10.out").read()
 
 

@@ -52,7 +52,7 @@ def test_native_parse_matches_numpy(name):
 
 def test_native_parse_correctly_rounded_adversarial():
     # The fraction reconstruction must match strtod/%lf bit-for-bit
-    # (ADVICE r1: the old 1e-nd multiply-add double-rounded).  Stress it
+    # (the old 1e-nd multiply-add double-rounded).  Stress it
     # with random many-digit decimals plus known hard cases.
     rng = np.random.default_rng(7)
     lines = []

@@ -1,104 +1,59 @@
-"""Roofline cost model: the f64-VPU elementwise term and its composition.
-
-Round-4 review (weak #1/#2): the gather-only f64 BELL roofline left the
-software-f64 VPU elementwise math unpriced, so split-f64 rows (whose
-gathers run at the pure f32 rate) rendered 40-58% "of roofline" when the
-gap was a real, calibrated cost.  ``bell_side_seconds`` now prices it per
-side; these tests pin the composition rules and check the model against
-the committed TPU measurements (the rows the ceiling convention is
-calibrated on — the reference's analogous check is its reports deriving
-per-rank cost laws from its own cluster tables, report-mpi.pdf §4.1).
-"""
-
-import json
-import os
+"""Roofline model: one peak table keyed by device_kind, least-time bounds."""
 
 import pytest
 
 from recsys_tpu.bench import roofline
-from recsys_tpu.bench.roofline import (
-    F64_VPU_OPS_PER_S,
-    bell_side_seconds,
-    gather_row_seconds,
-    pct_of_roofline,
-)
+from recsys_tpu.bench.roofline import PEAKS, pct_of_roofline, peaks, train_cost_model
 from recsys_tpu.config import RunConfig
-from recsys_tpu.io.parser import load_problem
+from recsys_tpu.io.generator import generate_instance
 
-from helpers import FIXTURES
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+H100 = "NVIDIA H100 80GB HBM3"
 
 
-def test_f32_side_prices_gather_only():
-    s = bell_side_seconds(30, "float32", 100_000)
-    assert s == 100_000 * gather_row_seconds(30, "float32", 100_000)
+@pytest.fixture(scope="module")
+def spec():
+    return generate_instance(300, 400, 30, 5, 20, iters=100, alpha=1e-4, seed=3)
 
 
-def test_f64_unchunked_side_is_max_composition():
-    """A small f64 side fuses whole: floor = max(gather, vpu)."""
-    k, slots = 100, 20_000  # unsplit (3k > 128), 16 MB set < 64 MB grain
-    gather = slots * gather_row_seconds(k, "float64", slots)
-    vpu = slots * (4 * k + 2) / F64_VPU_OPS_PER_S
-    assert bell_side_seconds(k, "float64", slots) == pytest.approx(max(gather, vpu))
-    assert bell_side_seconds(k, "float64", slots) < gather + vpu  # never additive here
+def test_unknown_device_raises(spec):
+    """A device with no data-sheet entry is an error, never a default."""
+    with pytest.raises(ValueError, match="no published peaks"):
+        peaks("cpu")
+    with pytest.raises(ValueError):
+        train_cost_model(spec, RunConfig(dtype="float32"), "dense", "Some Other Accelerator")
 
 
-def test_f64_chunked_side_is_additive_composition():
-    """A chunked f64 side serializes its pieces: floor = gather + vpu,
-    strictly above either term alone."""
-    k, slots = 30, 1_000_000  # split form (3k <= 128, chunked), ~200 MB set
-    s = bell_side_seconds(k, "float64", slots)
-    gather = slots * gather_row_seconds(k, "float64", slots)
-    vpu = slots * (6 * k + 2) / F64_VPU_OPS_PER_S  # split join: 6k+2 ops/slot
-    assert s == pytest.approx(gather + vpu)
-    assert s > max(gather, vpu)
+def test_h100_entry_matches_data_sheet():
+    p = PEAKS[H100]
+    assert (p["bf16_tflops"], p["tf32_tflops"], p["fp32_tflops"]) == (989.0, 495.0, 67.0)
+    assert p["hbm_gbps"] == 3350.0 and p["nvlink_gbps_each_way"] == 450.0
 
 
-def test_committed_f64_rows_sit_under_the_ceiling():
-    """Every committed TPU f64 BELL measurement must render <= 100% of
-    the model (the ceiling is the best sustained production observation,
-    so nothing measured may beat it) and >= 40% (a grossly pessimistic
-    model would hide regressions exactly like the unpriced-VPU bug did).
-    Only small-fixture instances are loaded to keep the test cheap."""
-    small = {
-        "instML100k", "inst1000-1000-100-2-30", "inst200-10000-50-100-300",
-        "inst400-50000-30-200-500", "inst500-500-20-2-100",
-        "inst50000-5000-100-2-5", "inst600-10000-10-40-400",
-    }
-    rows = [
-        json.loads(l)
-        for l in open(os.path.join(REPO, "bench_results.jsonl"))
-        if l.strip()
-    ]
-    best = {}
-    for r in rows:
-        if (
-            r.get("dtype") == "float64"
-            and r.get("path") == "bell"
-            and r.get("backend") == "tpu"
-            and r.get("train_s")
-            and r["instance"] in small
-        ):
-            k = r["instance"]
-            if k not in best or r["train_s"] < best[k]["train_s"]:
-                best[k] = r
-    assert len(best) >= 5  # the sweep covers these instances
-    from recsys_tpu.bench.sweep import effective_train_s
-
-    for name, r in best.items():
-        spec = load_problem(str(FIXTURES / f"{name}.in"))
-        # Score with the SAME wall the render uses (the marginal when
-        # trusted) — a ceiling breach in the marginal must fail here.
-        model, pct = pct_of_roofline(
-            spec, RunConfig(dtype="float64"), "bell", effective_train_s(r)
-        )
-        assert model == "gather+f64vpu"
-        assert pct is not None and 40.0 <= pct <= 100.0, (name, pct)
+@pytest.mark.parametrize("dtype,peak", [("float32", 67.0), ("bfloat16", 989.0), ("float64", 67.0)])
+def test_dense_model_uses_the_precision_peak(spec, dtype, peak):
+    """float32 is priced at the true-f32 rate (not TF32), bfloat16 at
+    the tensor-core rate; whichever of FLOPs and bytes is larger binds."""
+    bound, t = train_cost_model(spec, RunConfig(dtype=dtype), "dense", H100)
+    cells = spec.users * spec.items
+    t_flops = 6.0 * cells * spec.features / (peak * 1e12)
+    t_bytes = 2 * cells * (8 if dtype == "float64" else 4) / 3350e9
+    assert t == pytest.approx(max(t_flops, t_bytes))
+    assert bound == ("flops" if t_flops >= t_bytes else "bytes")
 
 
-def test_calibration_headroom():
-    """The constant keeps ~2% headroom over the best sustained production
-    observation (scripts/calibrate_gather_ceiling.py round-5 output:
-    gen-inst60000-2000 implies 70.7 G op/s)."""
-    assert 70.7e9 < F64_VPU_OPS_PER_S <= 75e9
+@pytest.mark.parametrize("path", ["bell", "coo"])
+def test_sparse_models_are_bandwidth_bound(spec, path):
+    bound, t32 = train_cost_model(spec, RunConfig(dtype="float32"), path, H100)
+    _, t64 = train_cost_model(spec, RunConfig(dtype="float64"), path, H100)
+    assert bound == "bytes" and t64 == pytest.approx(2 * t32)
+    if path == "coo":
+        assert t32 == pytest.approx(4.0 * spec.nnz * spec.features * 4 / 3350e9)
+
+
+def test_pct_of_roofline(spec):
+    cfg = RunConfig(dtype="float32")
+    _, per_iter = train_cost_model(spec, cfg, "bell", H100)
+    bound, pct = pct_of_roofline(spec, cfg, "bell", 2 * spec.iters * per_iter, H100)
+    assert bound == "bytes" and pct == pytest.approx(50.0)
+    assert pct_of_roofline(spec, cfg, "host", 1.0, H100) == (None, None)
+    assert roofline.pct_of_roofline(spec, cfg, "bell", None, H100) == (None, None)

@@ -1,4 +1,4 @@
-"""Bench sweep harness: rendering and reference mapping (no TPU)."""
+"""Bench sweep harness: rendering, reference mapping, GPU refusal."""
 
 from recsys_tpu.bench.sweep import REFERENCE_S, format_markdown
 
@@ -7,7 +7,7 @@ def _row(**kw):
     base = dict(
         instance="instML100k",
         dtype="float32",
-        path="pallas",
+        path="dense",
         wall_s=0.38,
         updates_per_s=7.9e8,
         iters=3000,
@@ -53,33 +53,17 @@ def test_reference_table_covers_published_instances():
         assert serial >= best > 0
 
 
-def test_effective_train_s_guards():
-    """Marginal walls are trusted only when the train is long enough to
-    difference (>=0.2 s) and the slope explains >=half of it; otherwise
-    the single-call train (or the end-to-end wall) is used."""
-    from recsys_tpu.bench.sweep import effective_train_s
-
-    good = {"train_s": 1.5, "train_marginal_s": 1.35, "wall_s": 2.0}
-    assert effective_train_s(good) == 1.35
-    noise = {"train_s": 0.0097, "train_marginal_s": 0.0007, "wall_s": 0.15}
-    assert effective_train_s(noise) == 0.0097  # sub-0.2s: marginal untrusted
-    fixed_dominated = {"train_s": 1.0, "train_marginal_s": 0.3, "wall_s": 2.0}
-    assert effective_train_s(fixed_dominated) == 1.0  # slope < half: noise
-    bare = {"wall_s": 3.0}
-    assert effective_train_s(bare) == 3.0
+def test_markdown_names_the_card():
+    md = format_markdown([_row(gpu="NVIDIA H100 80GB HBM3, 700.00 W")])
+    assert "| NVIDIA H100 80GB HBM3, 700.00 W |" in md
 
 
-def test_sub_resolution_pct_clamps_visibly():
-    """A >100% percentage from a sub-50ms train clamps to 100 with a '~'
-    marker; above the resolution floor a >100% value stays raw (a real
-    calibration breach must stay visible)."""
-    from recsys_tpu.bench.sweep import _clamp_sub_resolution_pct
+def test_sweep_refuses_without_gpu():
+    """A measurement that finds no GPU exits; it never falls back to a
+    CPU row (the test suite runs on the CPU backend)."""
+    import pytest
 
-    r = {"pct_roofline": 117.9, "roofline_model": "mxu", "train_s": 0.018,
-         "wall_s": 0.3}
-    _clamp_sub_resolution_pct(r)
-    assert r["pct_roofline"] == 100.0 and r["roofline_model"] == "~mxu"
-    r2 = {"pct_roofline": 104.0, "roofline_model": "gather", "train_s": 5.0,
-          "wall_s": 6.0}
-    _clamp_sub_resolution_pct(r2)
-    assert r2["pct_roofline"] == 104.0 and r2["roofline_model"] == "gather"
+    from recsys_tpu.bench.sweep import main
+
+    with pytest.raises(SystemExit, match="no GPU"):
+        main(["--instances", "inst0", "--repeats", "1"])
